@@ -17,6 +17,11 @@ from ..core.types import Hit, Rays
 from ..scene.scene import Scene
 from .brute import intersect_brute, occluded_brute
 
+# AUTO sends scenes of at most this many faces to the brute oracle and
+# larger ones to the blocked engine.  On an H100 at 262,144 primary rays the
+# brute oracle won at 1,280 faces and the blocked engine at 5,120 (PERF.md).
+BRUTE_MAX_FACES = 4096
+
 
 class Intersector(NamedTuple):
     """Bound query functions: (scene, rays) -> Hit / blocked mask."""
@@ -90,23 +95,12 @@ def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
             scene.geometry, scene.shapes.to_world, empty, cfg.bvh)
         return two_level_intersector(acc)
     if accel_type == AccelType.AUTO:
-        # strategy selection (the reference picks intersectors from scene
-        # shape at Preprocess, calc_intersection_device.cpp:73-150).  On
-        # TPU the Pallas blocked kernel streams its triangle table, so it
-        # has no size ceiling, and measures ~50x faster than the JAX LBVH
-        # gather traversal at 244k tris on v5e — it is the default.  Off
-        # TPU (CPU tests) Pallas would run interpreted, so pick the XLA
-        # paths: brute for tiny scenes, LBVH beyond.
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except RuntimeError:
-            on_tpu = False
-        if on_tpu:
-            accel_type = AccelType.BLOCKED
-        elif scene.geometry.num_faces <= 4096:
-            accel_type = AccelType.BRUTE
-        else:
-            accel_type = AccelType.LBVH
+        # strategy selection by scene size alone (the reference picks
+        # intersectors from scene shape at Preprocess,
+        # calc_intersection_device.cpp:73-150)
+        accel_type = (AccelType.BRUTE
+                      if scene.geometry.num_faces <= BRUTE_MAX_FACES
+                      else AccelType.BLOCKED)
     if accel_type == AccelType.BRUTE:
         return Intersector(
             intersect=lambda s, r: intersect_brute(s.geometry, r),

@@ -5,12 +5,12 @@ structure against a brute-force all-triangles intersector
 (``third_party/RadeonRays/UnitTest/utils.cpp:11-37``); we keep the same role
 for it — the BVH paths must match it bit-for-bit on hit ids — and it doubles
 as the intersector of choice for tiny scenes (Cornell: 36 tris) where it is a
-perfectly dense, branch-free VPU workload.
+perfectly dense, branch-free workload.
 
 Triangles are processed in static chunks inside a ``lax.fori_loop`` to bound
 live memory at (N_rays × CHUNK); each chunk is a dense broadcasted
 Möller-Trumbore test with a running min-reduction — fully regular compute that
-XLA tiles onto the VPU with no gathers beyond the chunk fetch.
+XLA fuses with no gathers beyond the chunk fetch.
 """
 from __future__ import annotations
 

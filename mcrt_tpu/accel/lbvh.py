@@ -1,9 +1,9 @@
 """Device-side LBVH construction (Morton codes + radix tree), pure JAX.
 
-TPU-native replacement for the Radeon Rays BVH builders: the reference's only
+Replacement for the Radeon Rays BVH builders: the reference's only
 GPU-side build is the Morton/radix-sort HLBVH (``src/accelerator/hlbvh.cpp``
 :65-201 + ``build_hlbvh.cl``); its CPU SAH builders (``bvh.cpp``,
-``split_bvh.cpp``) don't map to TPU.  This module builds the same class of
+``split_bvh.cpp``) run on the host.  This module builds the same class of
 structure — a linear BVH over Morton-sorted triangles — as a handful of dense,
 fully-parallel XLA ops:
 
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..config import BVHConfig
 from ..scene.scene import Geometry
@@ -33,16 +33,15 @@ from ..scene.scene import Geometry
 F32_MAX = jnp.finfo(jnp.float32).max
 
 
-class LBVH(struct.PyTreeNode):
+class LBVH(PyTreeNode):
     """Linear BVH over L leaves of up to ``leaf_size`` morton-consecutive
     triangles.  2L-1 nodes: indices [0, L-1) internal, [L-1, 2L-1) leaves.
     Leaf k (node L-1+k) holds sorted triangles
     ``prim[k*leaf_size : (k+1)*leaf_size]`` (padding slots invalid).
 
-    Traversal layouts are **transposed** (component-major): on TPU a gather
-    must put the ray batch in the 128-lane minor dimension — gathering
-    (C, L)-shaped tables along axis 1 yields (C, N) with N in lanes, ~10x
-    faster than AoS row gathers whose tiny trailing dims get padded to 128.
+    Traversal layouts are **transposed** (component-major): gathering
+    (C, L)-shaped tables along axis 1 yields (C, N) component rows over the
+    ray batch.
 
     - ``packed_t`` (12, L-1): both children's slabs per internal node
       [lmin(3), lmax(3), rmin(3), rmax(3)];
@@ -52,9 +51,8 @@ class LBVH(struct.PyTreeNode):
       trick the reference's traversal kernels use per leaf;
     - ``unified_t`` ((24, 2L-1), with ``unified_ci`` (2, 2L-1) i32): one
       table holding internal rows AND leaf rows (leaf_size=2: 18 floats) so
-      the hot loop issues exactly ONE gather per node visit — gather traffic
-      is the measured bottleneck of TPU traversal.  Populated only when
-      leaf_size == 2."""
+      the hot loop issues exactly ONE gather per node visit.  Populated
+      only when leaf_size == 2."""
 
     node_min: jax.Array  # (2L-1, 3)
     node_max: jax.Array  # (2L-1, 3)
@@ -67,7 +65,7 @@ class LBVH(struct.PyTreeNode):
     leaf_t: jax.Array  # (9*leaf_size, L) transposed leaf triangle components
     unified_t: jax.Array | None  # (24, 2L-1) f32 unified node/leaf rows
     unified_ci: jax.Array | None  # (2, 2L-1) i32 children (leaf rows: -1)
-    leaf_size: int = struct.field(pytree_node=False, default=4)
+    leaf_size: int = field(pytree_node=False, default=4)
 
     @property
     def num_leaves(self) -> int:

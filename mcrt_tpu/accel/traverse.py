@@ -3,21 +3,12 @@
 Role of the reference's traversal drivers + kernels
 (``src/intersector/intersector_skip_links.cpp`` driving
 ``kernels/CL/intersect_bvh2_skiplinks.cl``): closest-hit and any-hit queries
-against the LBVH.  TPU-first design decisions (each measured on-chip):
-
-- **component-major everything**: every per-ray quantity is a flat (N,)
-  array so the ray batch fills the 128-lane minor dim; node/leaf tables are
-  gathered along axis 1 of (C, L) transposed layouts — ~10x faster than AoS
-  row gathers whose tiny trailing dims pad to 128 lanes;
-- **lockstep masked loop**: each iteration, every ray processes one node —
-  both children slab-tested unconditionally and selected, near child
-  continued, far child pushed;
-- **transposed (S, N) stack** updated with one-hot select/reduce — no
-  cross-sublane gathers in the hot loop;
-- **coherence chunking**: rays sorted by direction Morton key and traversed
-  in chunks (``lax.map``), so each chunk's while_loop exits at its own max
-  depth instead of the global worst ray — the TPU analogue of warp-coherent
-  ray sorting.
+against the LBVH.  One lockstep masked ``while_loop`` over the wavefront:
+each iteration, every ray processes one node — both children slab-tested
+unconditionally and selected, near child continued, far child pushed onto
+a transposed (S, N) stack updated with one-hot select/reduce.  Optional
+coherence chunking sorts rays by a direction Morton key and traverses them
+in chunks (``lax.map``), so each chunk's loop exits at its own max depth.
 
 Must agree exactly with the brute-force oracle (reference conformance
 pattern, SURVEY §4).

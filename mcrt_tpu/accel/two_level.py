@@ -10,25 +10,20 @@ into instance object space and intersects the shared structure, returning
 alternative to ``SceneBuffers.add_instance``'s world-space bake-out, which
 costs a full vertex+face copy per instance.
 
-TPU-native shape (v3; the round-3 version looped a full blocked query per
-instance, O(I) sequential sweeps — VERDICT r3 item 4; the round-5 v2
-transformed the ray tile into object space per visit, forcing GROUP=1
-DMAs): the TLAS×BLAS product is flattened into a table of **(instance,
+Shape: the TLAS×BLAS product is flattened into a table of **(instance,
 block) pairs**, each carrying the world-space AABB of that instance's
-transformed block.  The flat engine's cull → sort machinery then runs
-UNCHANGED over pair AABBs (pairs are just boxes), producing per-tile
+transformed block.  The flat engine's cull → sort machinery runs
+unchanged over pair AABBs (pairs are just boxes), producing per-tile
 front-to-back pair visit lists — so cull cost and traversal cost scale
-with pairs *entered*, not instances *existing*.  The traversal kernel
-differs from the flat one only per visit: it decodes (block, instance)
-from the visit's pair code, reads the instance's to_world rows from SMEM
-scalars, transforms the DMA'd block's p0/e1/e2 TRIANGLE rows to world
-space (affine and linear in the stored rows, ~8k flops next to the
-~1.3M-flop MT test), and batches GROUP such blocks — from different
-instances — into one dense (GROUP*BLOCK, T) MT against the untransformed
-world rays, the flat kernel's exact shape.  Everything stays in world
-space, so entry distances, early exit, and the returned t are trivially
-exact (``intersector_2level.cpp`` instead relies on the affine-t
-invariant of unnormalized object-space rays).
+with pairs *entered*, not instances *existing*.  The traversal kernel is
+the flat one (``pallas_blocked.traverse``) with one step more per visit:
+it decodes (block, instance) from the visit's pair code and transforms the
+block's p0/e1/e2 triangle rows to world space by the instance's to_world
+(affine and linear in the stored rows) before the Möller-Trumbore test
+against the untransformed world rays.  Everything stays in world space, so
+entry distances, early exit, and the returned t are exact
+(``intersector_2level.cpp`` instead relies on the affine-t invariant of
+unnormalized object-space rays).
 
 Integration contract (mirrors the reference): the query returns the
 instance's SHAPE id; shading resolves per-shape transforms/materials from
@@ -37,42 +32,35 @@ the shape table (``RTShape`` carries the world transform,
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from ..core.pytree import PyTreeNode, field
 
 from ..core.types import Hit, Rays
 from ..scene.scene import Geometry
 from .pallas_blocked import (
-    BIG, BLOCK, GROUP, TILE, BlockedAccel, _coherence_order, _interpret,
-    _mt_block, _pack_table, _ray_rows, _ray_table, _visit_lists,
-    build_blocked, intersect_blocked, occluded_blocked,
+    BIG, INST_BITS, MAX_INSTANCES, BlockedAccel, _coherence_order,
+    _pack_table, _ray_table, build_blocked, intersect_blocked,
+    occluded_blocked, traverse,
 )
 
 F32_MAX = float(jnp.finfo(jnp.float32).max)
-INST_BITS = 12  # pair code = (block << INST_BITS) | instance
-MAX_INSTANCES = 1 << INST_BITS
 
 
-class TwoLevelAccel(struct.PyTreeNode):
+class TwoLevelAccel(PyTreeNode):
     """Shared BLAS + instance table + flattened (instance, block) pairs."""
 
     blas: BlockedAccel  # object-space blocked accel of the shared mesh
     world_to_object: jax.Array  # (I, 4, 4)
-    tw_rows: jax.Array  # (I*12,) to_world row-major 3x4 (SMEM prefetch:
-    #   the kernels transform DMA'd triangle blocks into world space)
+    tw_rows: jax.Array  # (I*12,) to_world row-major 3x4 (the kernels
+    #   transform visited triangle blocks into world space)
     shape_id: jax.Array  # (I,) i32 shape id reported for hits
     pair_aabb: jax.Array  # (Ppad, 8) world AABB per (instance, block) pair
-    pair_chunk: jax.Array  # (Ppad//128, 8) cull-chunk union boxes
     pair_code: jax.Array  # (Ppad,) i32 (block << INST_BITS) | instance
     bounds: jax.Array  # (2, 3) world scene bounds (ray coherence key)
-    num_instances: int = struct.field(pytree_node=False)
-    num_pairs: int = struct.field(pytree_node=False)
+    num_instances: int = field(pytree_node=False)
+    num_pairs: int = field(pytree_node=False)
 
 
 def build_two_level(source: Geometry, to_world: np.ndarray,
@@ -114,8 +102,6 @@ def build_two_level(source: Geometry, to_world: np.ndarray,
     pair_code = np.zeros((ppad,), np.int32)
     pair_code[:p] = code.astype(np.int32)
 
-    from .pallas_blocked import _chunk_bounds
-
     bounds = np.stack([plo.min(0), phi.max(0)]).astype(np.float32)
     return TwoLevelAccel(
         blas=blas,
@@ -123,7 +109,6 @@ def build_two_level(source: Geometry, to_world: np.ndarray,
         tw_rows=jnp.asarray(tw[:, :3, :4].reshape(-1)),
         shape_id=jnp.asarray(np.asarray(shape_ids, np.int32)),
         pair_aabb=jnp.asarray(pair_aabb),
-        pair_chunk=jnp.asarray(_chunk_bounds(pair_aabb)),
         pair_code=jnp.asarray(pair_code),
         bounds=jnp.asarray(bounds),
         num_instances=n_inst,
@@ -247,14 +232,11 @@ def build_two_level_scene(geom: Geometry, shape_to_world, instances,
     pair_code = np.zeros((ppad,), np.int32)
     pair_code[:p] = code.astype(np.int32)
 
-    from .pallas_blocked import _chunk_bounds
-
     merged = BlockedAccel(
         tri=jnp.asarray(tri),
         aabb=jnp.asarray(aabb),
         slot_prim=jnp.asarray(slot_prim),
         bounds=jnp.asarray(np.stack([plo.min(0), phi.max(0)])),
-        chunk_aabb=jnp.asarray(_chunk_bounds(aabb)),
         num_blocks=nb_tot,
     )
     return TwoLevelAccel(
@@ -263,7 +245,6 @@ def build_two_level_scene(geom: Geometry, shape_to_world, instances,
         tw_rows=jnp.asarray(tw_inst[:, :3, :4].reshape(-1)),
         shape_id=jnp.asarray(np.asarray(inst_sid, np.int32)),
         pair_aabb=jnp.asarray(pair_aabb),
-        pair_chunk=jnp.asarray(_chunk_bounds(pair_aabb)),
         pair_code=jnp.asarray(pair_code),
         bounds=jnp.asarray(np.stack([plo.min(0), phi.max(0)]).astype(np.float32)),
         num_instances=n_inst,
@@ -318,20 +299,12 @@ def refit_two_level(accel: TwoLevelAccel,
         jnp.where(valid[:, None], phi, nan),
         jnp.zeros((ppad, 2), jnp.float32),
     ], axis=1)
-    nch = ppad // 128
-    ch = pair_aabb.reshape(nch, 128, 8)
-    chunk = jnp.concatenate([
-        jnp.nanmin(ch[:, :, 0:3], axis=1),
-        jnp.nanmax(ch[:, :, 3:6], axis=1),
-        jnp.zeros((nch, 2), jnp.float32),
-    ], axis=1)
     vlo = jnp.min(jnp.where(valid[:, None], plo, BIG), axis=0)
     vhi = jnp.max(jnp.where(valid[:, None], phi, -BIG), axis=0)
     return accel.replace(
         world_to_object=w2o,
         tw_rows=tw[:, :3, :4].reshape(-1),
         pair_aabb=pair_aabb,
-        pair_chunk=chunk,
         bounds=jnp.stack([vlo, vhi]),
     )
 
@@ -342,300 +315,6 @@ def _transform_rays(rays: Rays, m: jax.Array) -> Rays:
     o = rays.o @ m[:3, :3].T + m[:3, 3]
     d = rays.d @ m[:3, :3].T
     return rays.replace(o=o, d=d)
-
-
-# --------------------------------------------------------------------------
-# Pair-list traversal kernels: like the flat _closest/_occluded kernels, but
-# per visit the DMA'd block's TRIANGLES are transformed to WORLD space by the
-# visit instance's to_world (p0' = R p0 + t; e1' = R e1; e2' = R e2 — affine
-# and linear in the stored p0/e1/e2 rows, ~8k flops per 128-tri block next to
-# the ~1.3M-flop MT test), so GROUP blocks from DIFFERENT instances batch
-# into one dense (GROUP*BLOCK, T) MT against the untransformed world rays —
-# the flat kernel's exact DMA/test shape.  (The v2 kernels transformed the
-# RAY tile into object space per visit instead, which forced GROUP=1 DMAs
-# and one small MT per visit — measured 1.8x slower than the flat kernel at
-# equal scene content.)
-# --------------------------------------------------------------------------
-
-
-def _pair_group_helpers(row, list_ref, code_ref, tri_hbm, scratch, sems):
-    ppad = list_ref.shape[1]
-    nt_blocks = tri_hbm.shape[1] // BLOCK
-
-    def decode(k, g):
-        # entries past cnt hold non-entered-but-VALID pair codes (the pair
-        # table only ever pairs a block with an instance of its own BLAS),
-        # so a partial final group redundantly tests real world geometry —
-        # harmless, exactly like the flat kernel's trailing entries
-        pair = list_ref[row, jnp.minimum(k * GROUP + g, ppad - 1)]
-        code = code_ref[pair]
-        b = jnp.minimum(code >> INST_BITS, nt_blocks - 1)
-        inst = code & (MAX_INSTANCES - 1)
-        return b, inst
-
-    def get_dma(slot, k, g):
-        b, _ = decode(k, g)
-        start = pl.multiple_of(b * BLOCK, BLOCK)
-        return pltpu.make_async_copy(
-            tri_hbm.at[:, pl.ds(start, BLOCK)],
-            scratch.at[slot, :, pl.ds(g * BLOCK, BLOCK)],
-            sems.at[slot, g],
-        )
-
-    def start_group(slot, k):
-        for g in range(GROUP):
-            get_dma(slot, k, g).start()
-
-    def wait_group(slot, k):
-        for g in range(GROUP):
-            get_dma(slot, k, g).wait()
-
-    return decode, start_group, wait_group
-
-
-def _world_rows(scratch_slot, decode, tw_ref, k):
-    """(GROUP*BLOCK, 9) world-space triangle rows: per sub-block, the visit
-    instance's to_world applied to the object-space p0/e1/e2 components.
-    Unfilled slots (p0=e1=e2=0) map to degenerate triangles (det 0)."""
-    parts = []
-    for g in range(GROUP):
-        _, inst = decode(k, g)
-        base = inst * 12
-        m = [tw_ref[base + j] for j in range(12)]
-        seg = scratch_slot[0:9, g * BLOCK:(g + 1) * BLOCK]  # (9, BLOCK)
-        p0x, p0y, p0z = seg[0:1], seg[1:2], seg[2:3]
-        e1x, e1y, e1z = seg[3:4], seg[4:5], seg[5:6]
-        e2x, e2y, e2z = seg[6:7], seg[7:8], seg[8:9]
-        parts.append(jnp.concatenate([
-            m[0] * p0x + m[1] * p0y + m[2] * p0z + m[3],
-            m[4] * p0x + m[5] * p0y + m[6] * p0z + m[7],
-            m[8] * p0x + m[9] * p0y + m[10] * p0z + m[11],
-            m[0] * e1x + m[1] * e1y + m[2] * e1z,
-            m[4] * e1x + m[5] * e1y + m[6] * e1z,
-            m[8] * e1x + m[9] * e1y + m[10] * e1z,
-            m[0] * e2x + m[1] * e2y + m[2] * e2z,
-            m[4] * e2x + m[5] * e2y + m[6] * e2z,
-            m[8] * e2x + m[9] * e2y + m[10] * e2z,
-        ], axis=0))  # (9, BLOCK)
-    return jnp.concatenate(parts, axis=1).T  # (GROUP*BLOCK, 9)
-
-
-def _closest2_kernel(count_ref, code_ref, tw_ref, rays_ref, list_ref,
-                     tn_ref, tri_hbm, t_ref, slot_ref, inst_ref,
-                     scratch, sems):
-    i = pl.program_id(0)
-    row = i % 8
-    cnt = count_ref[i]
-    rt = rays_ref[:]
-    ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(rt)
-    ppad = list_ref.shape[1]
-    decode, start_group, wait_group = _pair_group_helpers(
-        row, list_ref, code_ref, tri_hbm, scratch, sems)
-    groups = (cnt + GROUP - 1) // GROUP
-
-    t_ref[:] = jnp.full((1, TILE), BIG, jnp.float32)
-    slot_ref[:] = jnp.full((1, TILE), -1, jnp.int32)
-    inst_ref[:] = jnp.full((1, TILE), -1, jnp.int32)
-
-    @pl.when(cnt > 0)
-    def _():
-        start_group(0, 0)
-
-        def cond(state):
-            k, best_t, _, _ = state
-            t_exit = jnp.max(jnp.minimum(best_t, tmx))
-            kk = jnp.minimum(k * GROUP, ppad - 1)
-            return (k < groups) & (tn_ref[row, kk] <= t_exit)
-
-        def body(state):
-            k, best_t, best_slot, best_inst = state
-
-            @pl.when(k + 1 < groups)
-            def _():
-                start_group((k + 1) % 2, k + 1)
-
-            wait_group(k % 2, k)
-            rows = _world_rows(scratch[k % 2], decode, tw_ref, k)
-            t, _, _, hit = _mt_block(rows, ox, oy, oz, dx, dy, dz,
-                                     tmn, tmx, best_t)
-            tm = jnp.where(hit, t, BIG)
-            tnew = jnp.min(tm, axis=0, keepdims=True)
-            j = jnp.argmin(tm, axis=0)[None, :].astype(jnp.int32)
-            # resolve the winning row's (block, instance) from group entries
-            base_b, base_i = decode(k, GROUP - 1)
-            for g in reversed(range(GROUP - 1)):
-                b_g, i_g = decode(k, g)
-                in_g = j < (g + 1) * BLOCK
-                base_b = jnp.where(in_g, b_g, base_b)
-                base_i = jnp.where(in_g, i_g, base_i)
-            better = tnew < best_t
-            best_slot = jnp.where(better,
-                                  base_b * BLOCK + (j & (BLOCK - 1)),
-                                  best_slot)
-            best_inst = jnp.where(better, base_i, best_inst)
-            best_t = jnp.where(better, tnew, best_t)
-            return k + 1, best_t, best_slot, best_inst
-
-        k, bt, bs, bi = jax.lax.while_loop(
-            cond, body, (jnp.int32(0), t_ref[:], slot_ref[:], inst_ref[:])
-        )
-        t_ref[:] = bt
-        slot_ref[:] = bs
-        inst_ref[:] = bi
-
-        @pl.when(k < groups)
-        def _():
-            wait_group(k % 2, k)
-
-
-def _occluded2_kernel(count_ref, code_ref, tw_ref, rays_ref, list_ref,
-                      tri_hbm, out_ref, scratch, sems):
-    i = pl.program_id(0)
-    row = i % 8
-    cnt = count_ref[i]
-    rt = rays_ref[:]
-    ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(rt)
-    live0 = tmx > tmn
-    out_ref[:] = jnp.zeros((1, TILE), jnp.float32)
-    decode, start_group, wait_group = _pair_group_helpers(
-        row, list_ref, code_ref, tri_hbm, scratch, sems)
-    groups = (cnt + GROUP - 1) // GROUP
-
-    @pl.when(cnt > 0)
-    def _():
-        start_group(0, 0)
-
-        def cond(state):
-            k, blocked = state
-            return (k < groups) & jnp.any(live0 & (blocked == 0.0))
-
-        def body(state):
-            k, blocked = state
-
-            @pl.when(k + 1 < groups)
-            def _():
-                start_group((k + 1) % 2, k + 1)
-
-            wait_group(k % 2, k)
-            rows = _world_rows(scratch[k % 2], decode, tw_ref, k)
-            _, _, _, hit = _mt_block(
-                rows, ox, oy, oz, dx, dy, dz, tmn, tmx,
-                jnp.where(blocked > 0.0, -BIG, BIG))
-            any_hit = jnp.max(hit.astype(jnp.float32), axis=0, keepdims=True)
-            return k + 1, jnp.maximum(blocked, any_hit)
-
-        k, blocked = jax.lax.while_loop(cond, body, (jnp.int32(0), out_ref[:]))
-        out_ref[:] = blocked
-
-        @pl.when(k < groups)
-        def _():
-            wait_group(k % 2, k)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(6,))
-def _query2_closest(rays_packed, tri, pair_aabb, pair_chunk, pair_code,
-                    tw_rows, num_pairs):
-    interpret = _interpret()
-    counts, lists, tn_sorted = _visit_lists(rays_packed, pair_chunk,
-                                            pair_aabb, interpret)
-    npad = rays_packed.shape[1]
-    n_tiles = npad // TILE
-    ppad = lists.shape[1]
-    rows8 = -(-n_tiles // 8) * 8
-    if rows8 != n_tiles:
-        lists = jnp.pad(lists, ((0, rows8 - n_tiles), (0, 0)))
-        tn_sorted = jnp.pad(tn_sorted, ((0, rows8 - n_tiles), (0, 0)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((8, TILE), lambda i, c, pc, w: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, ppad), lambda i, c, pc, w: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((8, ppad), lambda i, c, pc, w: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, TILE), lambda i, c, pc, w: (0, i),
-                         memory_space=pltpu.VMEM),
-        ] * 3,
-        scratch_shapes=[
-            pltpu.VMEM((2, 16, GROUP * BLOCK), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, GROUP)),
-        ],
-    )
-    t, slot, inst = pl.pallas_call(
-        _closest2_kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((1, npad), jnp.float32),
-            jax.ShapeDtypeStruct((1, npad), jnp.int32),
-            jax.ShapeDtypeStruct((1, npad), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=96 * 2**20,
-        ),
-        interpret=interpret,
-    )(counts, pair_code, tw_rows, rays_packed, lists, tn_sorted, tri)
-    return t, slot, inst
-
-
-_query2_closest.defvjp(
-    lambda r, t, a, c, pc, w, n: (_query2_closest(r, t, a, c, pc, w, n),
-                                  None),
-    lambda n, res, ct: (None,) * 6,
-)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(6,))
-def _query2_any(rays_packed, tri, pair_aabb, pair_chunk, pair_code,
-                tw_rows, num_pairs):
-    interpret = _interpret()
-    counts, lists, _ = _visit_lists(rays_packed, pair_chunk, pair_aabb,
-                                    interpret)
-    npad = rays_packed.shape[1]
-    n_tiles = npad // TILE
-    ppad = lists.shape[1]
-    rows8 = -(-n_tiles // 8) * 8
-    if rows8 != n_tiles:
-        lists = jnp.pad(lists, ((0, rows8 - n_tiles), (0, 0)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((8, TILE), lambda i, c, pc, w: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, ppad), lambda i, c, pc, w: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((1, TILE), lambda i, c, pc, w: (0, i),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, 16, GROUP * BLOCK), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, GROUP)),
-        ],
-    )
-    out = pl.pallas_call(
-        _occluded2_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((1, npad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=96 * 2**20,
-        ),
-        interpret=interpret,
-    )(counts, pair_code, tw_rows, rays_packed, lists, tri)
-    return out
-
-
-_query2_any.defvjp(
-    lambda r, t, a, c, pc, w, n: (_query2_any(r, t, a, c, pc, w, n), None),
-    lambda n, res, ct: (None,) * 6,
-)
 
 
 def _resolve_uv2(accel: TwoLevelAccel, slot, inst, rays: Rays):
@@ -671,9 +350,9 @@ def intersect_two_level(source: Geometry, accel: TwoLevelAccel,
         order = _coherence_order(rays, accel.bounds)
         table = jnp.take(table, order, axis=0)
     packed = _pack_table(table)
-    t, slot, inst = _query2_closest(
-        packed, accel.blas.tri, accel.pair_aabb, accel.pair_chunk,
-        accel.pair_code, accel.tw_rows, accel.num_pairs)
+    t, slot, inst = traverse(
+        packed, accel.blas.tri, accel.pair_aabb, closest=True,
+        code=accel.pair_code, tw=accel.tw_rows)
     if sort:
         inv = jnp.zeros((n,), jnp.int32).at[order].set(
             jnp.arange(n, dtype=jnp.int32))
@@ -715,9 +394,9 @@ def occluded_two_level(source: Geometry, accel: TwoLevelAccel,
         order = _coherence_order(rays, accel.bounds)
         table = jnp.take(table, order, axis=0)
     packed = _pack_table(table)
-    out = _query2_any(
-        packed, accel.blas.tri, accel.pair_aabb, accel.pair_chunk,
-        accel.pair_code, accel.tw_rows, accel.num_pairs)
+    out = traverse(
+        packed, accel.blas.tri, accel.pair_aabb, closest=False,
+        code=accel.pair_code, tw=accel.tw_rows)
     blocked = out.reshape(-1)[:n] > 0.0
     if sort:
         inv = jnp.zeros((n,), jnp.int32).at[order].set(

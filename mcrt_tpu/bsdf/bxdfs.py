@@ -1,6 +1,6 @@
 """BxDF lobe library (shading space, y-up), fully vectorized and branch-free.
 
-TPU-native re-implementation of the *math* of ``assets/kernels/bxdfs.cl``:
+Re-implementation of the *math* of ``assets/kernels/bxdfs.cl``:
 shading-space trig (:22-59), Fresnel dielectric/conductor/Schlick (:154-220),
 specular reflection/transmission (:259-307), Lambertian (:317-347),
 Oren-Nayar (:352-383), roughness->alpha (:385-390), Beckmann and

@@ -1,6 +1,6 @@
 """Uber-BSDF: masked lobe mixture (eval / pdf / sample).
 
-TPU-native re-formulation of the reference's uber material
+Re-formulation of the reference's uber material
 (``evaluateUberBSDF`` ``bxdfs.cl:804-827``, ``evaluateUberBSDF_Pdf``
 :829-880, ``sampleUberBSDF`` :892-1053): up to five lobes
 
@@ -12,8 +12,7 @@ TPU-native re-formulation of the reference's uber material
                                   transmission, bxdfs.cl:1019-1035)
 
 Where the reference dispatches per-thread on lobe flags, we evaluate *all*
-lobes on every lane and mask — uniform control flow, no divergence, exactly
-what the VPU wants.  Lobe selection during sampling follows the reference:
+lobes on every lane and mask — uniform control flow, no divergence.  Lobe selection during sampling follows the reference:
 uniform choice among present lobes with u.x remapped back to [0,1)
 (``bxdfs.cl:956-959``); the returned pdf is the lobe-count-averaged mixture
 pdf over matching non-delta lobes (specular lobes contribute their discrete
@@ -27,7 +26,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..core import math as m
 from ..sampling import samplers as smp
@@ -45,7 +44,7 @@ U_COND = 5
 U_BLEND = 6
 
 
-class UberBSDF(struct.PyTreeNode):
+class UberBSDF(PyTreeNode):
     """Per-lane material properties after texture modulation
     (``getUberMaterialProperties``, ``materials.cl:67-91``)."""
 
@@ -59,10 +58,10 @@ class UberBSDF(struct.PyTreeNode):
     conductor_eta: jax.Array  # (N, 3) conductor Fresnel eta (kr lobe)
     conductor_k: jax.Array  # (N, 3) conductor absorption; any>0 => conductor
     rs_blend: jax.Array  # (N, 3) any>0 => Fresnel-blend replaces Lambertian
-    dist: int = struct.field(pytree_node=False, default=bx.TROWBRIDGE_REITZ)
+    dist: int = field(pytree_node=False, default=bx.TROWBRIDGE_REITZ)
     # STATIC scene-wide lobe mask (see Materials.used_lobes): lobes absent
     # from EVERY material compile away from eval/pdf/sample entirely
-    used: tuple = struct.field(pytree_node=False, default=(True,) * 7)
+    used: tuple = field(pytree_node=False, default=(True,) * 7)
 
     def is_fresnel_blend(self):
         return jnp.any(self.rs_blend > 0.0, -1)
@@ -99,7 +98,7 @@ class UberBSDF(struct.PyTreeNode):
         return ~self.has_non_delta() & (self.num_lobes() > 0)
 
 
-class BSDFSample(struct.PyTreeNode):
+class BSDFSample(PyTreeNode):
     wi: jax.Array  # (N, 3) local (shading space)
     f: jax.Array  # (N, 3)
     pdf: jax.Array  # (N,)

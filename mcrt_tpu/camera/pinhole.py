@@ -1,6 +1,6 @@
 """Pinhole camera with frustum-corner-ray parametrization.
 
-TPU-native analogue of ``RTPinholeCamera`` (``kernel_data.h:246-264``) and the
+Analogue of ``RTPinholeCamera`` (``kernel_data.h:246-264``) and the
 camera kernels: per-pixel directions are the normalized bilinear interpolation
 of the 4 frustum corner directions (``PathTracing.cl:13-35``), and the BDPT
 importance functions ``We``/``PdfWe``/``SampleWi`` follow ``cameras.cl:8-71``.
@@ -13,12 +13,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..core import math as m
 
 
-class PinholeCamera(struct.PyTreeNode):
+class PinholeCamera(PyTreeNode):
     position: jax.Array  # (3,)
     c00: jax.Array  # (3,) bottom-left corner dir (unit)
     c10: jax.Array  # (3,) bottom-right

@@ -23,7 +23,12 @@ def _load_config(args) -> "RenderConfig":
     from .config import IntegratorConfig, IntegratorType
 
     if args.config:
-        import yaml
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                "--config reads YAML and needs PyYAML, which is not "
+                "installed") from e
 
         with open(args.config) as f:
             cfg = from_dict(yaml.safe_load(f) or {})

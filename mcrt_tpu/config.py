@@ -1,6 +1,6 @@
 """Typed configuration tree.
 
-TPU-native replacement for the reference's three config mechanisms
+Replacement for the reference's three config mechanisms
 (SURVEY §5): the ``PathTracerSettings`` GUI-widget singletons
 (``source/application/PathTracer/GUI/PathTracingSettings.h:35-261``), the
 Radeon Rays string ``SetOption`` store consumed at commit
@@ -48,7 +48,7 @@ class AccelType(str, enum.Enum):
 
     BRUTE = "brute"  # O(N) all-triangles oracle (conformance reference)
     LBVH = "lbvh"  # device-built Morton LBVH, JAX traversal
-    BLOCKED = "blocked"  # Pallas blocked-dense kernel (TPU-native default)
+    BLOCKED = "blocked"  # blocked visit-list kernels (Pallas, Triton)
     TWO_LEVEL = "two_level"  # instanced: shared BLASes + pair-list kernels
     AUTO = "auto"  # pick per scene size (Commit-time strategy selection)
 

@@ -1,6 +1,6 @@
-"""Vector / geometry math helpers (TPU-friendly, pure jnp).
+"""Vector / geometry math helpers (pure jnp).
 
-TPU-native analogue of the reference's device math utilities
+Analogue of the reference's device math utilities
 (``assets/kernels/math.cl``, ``matrix.cl``): spherical directions, orthonormal
 bases, corner-ray interpolation, 2x2 linear solve.  Everything here is
 vectorized over a leading batch axis and branch-free.

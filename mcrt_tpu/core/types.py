@@ -1,21 +1,21 @@
 """Core SoA pytrees for the wavefront renderer.
 
-TPU-native re-design of the reference's device structs
+Re-design of the reference's device structs
 (``assets/kernels/kernel_data.h``): instead of arrays-of-structs in OpenCL
 global memory (``RTRay`` :404-417, ``RTIntersection`` :394-402,
 ``RTInteraction`` :162-200, ``RTThroughput`` :154-160) we carry
 struct-of-arrays pytrees, each leaf a flat ``(N, ...)`` jnp array.  XLA lays
-these out as dense registers/VMEM tiles; masking replaces the reference's
+these out densely; masking replaces the reference's
 per-ray active flags (``kernel_data.h:419-440``).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .pytree import PyTreeNode, field
 
 
-class Rays(struct.PyTreeNode):
+class Rays(PyTreeNode):
     """A batch of rays (SoA). Inactive rays are masked via ``active``."""
 
     o: jax.Array  # (N, 3) origins
@@ -43,7 +43,7 @@ class Rays(struct.PyTreeNode):
         return self.o + self.d * t[..., None]
 
 
-class RayDiff(struct.PyTreeNode):
+class RayDiff(PyTreeNode):
     """Camera-ray differentials — analogue of ``RTRayDifferentials``
     (``kernel_data.h:266-272``): the directions of the rays through the
     neighboring pixel centers (+1 in x, +1 in y).  A pinhole shares the
@@ -53,7 +53,7 @@ class RayDiff(struct.PyTreeNode):
     dddy: jax.Array  # (N, 3) direction of the y-neighbor pixel's ray
 
 
-class Hit(struct.PyTreeNode):
+class Hit(PyTreeNode):
     """Closest-hit record — analogue of ``RTIntersection``
     (``kernel_data.h:394-402``): shape id, prim id, barycentric uv, t."""
 
@@ -76,7 +76,7 @@ class Hit(struct.PyTreeNode):
         )
 
 
-class Interaction(struct.PyTreeNode):
+class Interaction(PyTreeNode):
     """Surface interaction — analogue of ``RTInteraction``
     (``kernel_data.h:162-200``): position, geometric + shading frames, uv and
     its screen-space derivatives for texture LOD."""
@@ -95,7 +95,7 @@ class Interaction(struct.PyTreeNode):
     valid: jax.Array  # (N,) bool
 
 
-class Throughput(struct.PyTreeNode):
+class Throughput(PyTreeNode):
     """Per-path wavefront state carried across bounces — analogue of
     ``RTThroughput`` (``kernel_data.h:154-160``)."""
 

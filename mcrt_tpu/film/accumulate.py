@@ -11,13 +11,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..config import FilterConfig
 from .filters import eval_filter
 
 
-class Accumulator(struct.PyTreeNode):
+class Accumulator(PyTreeNode):
     weighted: jax.Array  # (H, W, 3) filter-weighted radiance sum
     weight: jax.Array  # (H, W) filter weight sum
     frame: jax.Array  # () i32 frames accumulated (spp so far)

@@ -1,6 +1,6 @@
 """Bidirectional path tracer (BDPT), fully fused into one XLA program.
 
-TPU-native redesign of the reference's BDPT (``assets/kernels/BDPT.cl`` +
+Redesign of the reference's BDPT (``assets/kernels/BDPT.cl`` +
 host driver ``RTBDPTPass.cpp``, SURVEY §3.3): the reference launches 4 kernels
 per stage with host loops and splats via CAS-loop float atomics
 (``BDPT.cl:654-669``); here both subpath walks, every (s,t) connection
@@ -10,7 +10,7 @@ atomics, per SURVEY §5.
 
 The connection strategies are **batched over a strategy axis** (round-5
 redesign): all (s,t) pairs of one family are evaluated as (S, N, ...) tensors
-in ONE set of ops — the TPU analogue of the reference compiling TWO kernels
+in ONE set of ops — the counterpart of the reference compiling TWO kernels
 over *all* strategies (``PrepareConnections``/``ConnectVertices``,
 ``BDPT.cl:460-875``) instead of one program fragment per (s,t).  Because the
 strategy table is static, endpoint data is assembled by static slices (no
@@ -55,7 +55,7 @@ import os
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..bsdf import uber
 from ..bsdf.materials import fetch_bsdf
@@ -85,7 +85,7 @@ VT_SURFACE = 2
 OCC_CHUNK_RAYS = int(os.environ.get("MCRT_BDPT_OCC_RAYS", str(1 << 21)))
 
 
-class Vertices(struct.PyTreeNode):
+class Vertices(PyTreeNode):
     """SoA path-vertex storage, leading dims (N, V) — the functional
     analogue of ``RTBDPTVertex`` (``kernel_data.h:220-244``)."""
 

@@ -1,6 +1,6 @@
 """Unidirectional wavefront path integrator — the hot loop.
 
-TPU-native redesign of the reference's host-driven per-bounce pipeline
+Redesign of the reference's host-driven per-bounce pipeline
 (``RTPathTracingPass.cpp:71-86`` driving ``PathTracing.cl``): where the
 reference launches 2 kernels + 2 intersection queries per bounce with blocking
 ``Finish`` between each (SURVEY §3.2), here the *entire* bounce loop — shade,

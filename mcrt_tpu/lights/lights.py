@@ -14,13 +14,13 @@ Vectorized, branch-free analogue of ``assets/kernels/lights.cl``:
 
 All four variants are evaluated per-lane and selected by light type with
 ``jnp.where`` — lights are a few dozen flops, negligible next to traversal, so
-uniform control flow beats a ``lax.switch`` on TPU.
+uniform control flow is the simple choice over a ``lax.switch``.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..core import math as m
 from ..sampling import samplers as smp
@@ -34,7 +34,7 @@ from ..scene.scene import (
 )
 
 
-class LightSample(struct.PyTreeNode):
+class LightSample(PyTreeNode):
     li: jax.Array  # (N, 3) incident radiance (already / d^2 for point)
     wi: jax.Array  # (N, 3) unit dir from ref point to light
     pdf: jax.Array  # (N,) solid-angle pdf at ref point (1 for delta lights)
@@ -196,7 +196,7 @@ def eval_le(scene: Scene, light_idx: jax.Array, n: jax.Array, wo: jax.Array):
     return jnp.where(ok[..., None], lint, 0.0)
 
 
-class LeSample(struct.PyTreeNode):
+class LeSample(PyTreeNode):
     """Emission sample for BDPT light subpaths (``sampleLightLe``)."""
 
     le: jax.Array  # (N, 3)

@@ -4,10 +4,10 @@ The reference has no distributed layer at all (single OpenCL device, SURVEY
 §2e); this module is new design.  The renderer's two data axes map onto a 2-D
 ``jax.sharding.Mesh``:
 
-- ``"spp"`` — samples-per-pixel sharded across chips; the reference
+- ``"spp"`` — samples-per-pixel sharded across devices; the reference
   accumulates spp *temporally* (``reconstruction.cl:45-57``); here the same
-  sum runs spatially across the mesh and XLA reduces it with ``psum`` over ICI.
-- ``"rays"`` — image tiles / flat ray batches sharded across chips, the
+  sum runs spatially across the mesh and XLA reduces it with ``psum``.
+- ``"rays"`` — image tiles / flat ray batches sharded across devices, the
   renderer's data-parallel axis (the reference's ``Launch2D`` SIMT analogue).
 
 Scene and BVH are replicated (``P()``); for San-Miguel-scale scenes the scene

@@ -3,11 +3,11 @@
 New capability (the reference is single-device, SURVEY §2e).  Idiomatic
 GSPMD: the render is written once as array code; sharding annotations on the
 per-sample radiance tensor (``P("spp", "rays")``) tell XLA to partition the
-wavefront across chips, and the spp-mean / parameter-gradient reductions
-lower to ``psum`` over ICI automatically — no hand-written collectives.
+wavefront across devices, and the spp-mean / parameter-gradient reductions
+lower to ``psum`` collectives automatically — no hand-written collectives.
 
 The gradient path (inverse rendering) is the renderer's "training step":
-per-chip backward over its ray/spp shard, parameter grads all-reduced by XLA,
+per-device backward over its ray/spp shard, parameter grads all-reduced by XLA,
 overlapped with the backward pass by the scheduler.
 """
 from __future__ import annotations
@@ -44,11 +44,9 @@ def render_spp_batch(
         return radiance
 
     if mesh is None:
-        # single device: sequential scan over samples.  vmap would batch
-        # every gather in the integrator (measured ~14x slower per spp on
-        # TPU: batched gathers defeat XLA's same-index coalescing); a scan
-        # keeps each sample at the unbatched shapes the kernels are tuned
-        # for while still amortizing dispatch into one program.
+        # single device: sequential map over samples keeps each sample at
+        # the unbatched shapes the kernels are written for, while still
+        # amortizing dispatch into one program.
         out = jax.lax.map(per_sample, frames)  # (S, N, 3)
     else:
         # sharded over the spp axis: vmap gives XLA the batch dimension to
@@ -91,7 +89,7 @@ def make_train_step(
     parameters (albedo/roughness/light intensity — BASELINE config 5).
 
     Returns jitted ``step(scene, frames, target) -> (loss, grads)`` where
-    grads is a pytree shaped like ``param_get(scene)``.  Per-chip backward
+    grads is a pytree shaped like ``param_get(scene)``.  Per-device backward
     runs on the local ray/spp shard; XLA all-reduces the replicated-parameter
     gradients over the mesh (psum over both axes), overlapping with the
     backward computation.

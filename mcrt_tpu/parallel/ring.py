@@ -3,12 +3,12 @@
 New capability (SURVEY §2e "scene/BVH sharding — the model axis"): the
 reference holds the whole scene in one device's memory (its GUI merely
 *reports* allocation totals, ``PathTracingGUI.cpp:110-114``); at
-San-Miguel scale one TPU's HBM may not.  Here the per-face tables (the
+San-Miguel scale one device's memory may not.  Here the per-face tables (the
 memory-dominant triangle/BVH data) are partitioned into one shard per
 device on the ``rays`` mesh axis, and **rays travel to the data**: each
 ring step intersects the resident ray block against the local shard, then
 rotates the (rays + running-best-hit) state to the next device with
-``jax.lax.ppermute`` over ICI.  After ``n_shards`` steps every ray has
+``jax.lax.ppermute``.  After ``n_shards`` steps every ray has
 visited every shard and is back home carrying the global closest hit —
 the renderer's ring-attention analogue (blockwise KV rotation with a
 running reduction).
@@ -28,24 +28,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:
-    import inspect as _inspect
-
-    from jax import shard_map as _shard_map
-
-    if "check_rep" in _inspect.signature(_shard_map).parameters:
-        shard_map = _shard_map
-    else:
-        def shard_map(f, *, mesh, in_specs, out_specs, check_rep=True):
-            # jax >= 0.8 renamed/removed check_rep; replication checking is
-            # simply off for these manually-specced regions
-            return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=False)
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..core.types import Hit, Rays
 from ..scene.scene import Geometry
@@ -113,7 +97,7 @@ def shard_faces(geom: Geometry, n_shards: int,
     return out, face_map
 
 
-class ShardedBlockedAccel(struct.PyTreeNode):
+class ShardedBlockedAccel(PyTreeNode):
     """Per-shard blocked accels stacked on a leading shard axis (sharded
     ``P(rays)`` so each device holds exactly its own shard's tables) — the
     role of the per-GPU BVH the reference can never split
@@ -121,10 +105,9 @@ class ShardedBlockedAccel(struct.PyTreeNode):
 
     tri: jax.Array  # (nd, 16, NTmax)
     aabb: jax.Array  # (nd, NBmax, 8)
-    chunk_aabb: jax.Array  # (nd, NBmax//128, 8) cull-chunk union boxes
     slot_prim: jax.Array  # (nd, NTmax)
     bounds: jax.Array  # (2, 3) GLOBAL scene bounds (replicated sort key)
-    num_blocks: int = struct.field(pytree_node=False)
+    num_blocks: int = field(pytree_node=False)
 
 
 def _build_shard_accels(geom: Geometry, n_shards: int, fpad: int,
@@ -154,7 +137,6 @@ def _build_shard_accels(geom: Geometry, n_shards: int, fpad: int,
              default=128)
     tris = np.zeros((n_shards, 16, nt), np.float32)
     aabbs = np.full((n_shards, nb, 8), np.nan, np.float32)
-    chunks = np.full((n_shards, nb // 128, 8), np.nan, np.float32)
     slots = np.full((n_shards, nt), -1, np.int32)
     lo = np.full((3,), np.inf, np.float32)
     hi = np.full((3,), -np.inf, np.float32)
@@ -163,7 +145,6 @@ def _build_shard_accels(geom: Geometry, n_shards: int, fpad: int,
             continue
         tris[s, :, : a.tri.shape[1]] = np.asarray(a.tri)
         aabbs[s, : a.aabb.shape[0]] = np.asarray(a.aabb)
-        chunks[s, : a.chunk_aabb.shape[0]] = np.asarray(a.chunk_aabb)
         slots[s, : a.slot_prim.shape[0]] = np.asarray(a.slot_prim)
         b = np.asarray(a.bounds)
         lo = np.minimum(lo, b[0])
@@ -171,7 +152,6 @@ def _build_shard_accels(geom: Geometry, n_shards: int, fpad: int,
     return ShardedBlockedAccel(
         tri=jnp.asarray(tris),
         aabb=jnp.asarray(aabbs),
-        chunk_aabb=jnp.asarray(chunks),
         slot_prim=jnp.asarray(slots),
         bounds=jnp.asarray(np.stack([lo, hi])),
         num_blocks=nt // BLOCK,
@@ -219,12 +199,11 @@ def make_ring_intersector(mesh: Mesh, n_shards: int, fpad: int,
         return (geom.indices, geom.face_shape, geom.face_valid,
                 geom.face_attrs, geom.positions, geom.normals, geom.uvs)
 
-    def _local_accel(tri, aabb, chunk_aabb, slot_prim):
+    def _local_accel(tri, aabb, slot_prim):
         from ..accel.pallas_blocked import BlockedAccel
 
         return BlockedAccel(
-            tri=tri[0], aabb=aabb[0], chunk_aabb=chunk_aabb[0],
-            slot_prim=slot_prim[0],
+            tri=tri[0], aabb=aabb[0], slot_prim=slot_prim[0],
             bounds=accel.bounds, num_blocks=accel.num_blocks,
         )
 
@@ -235,9 +214,9 @@ def make_ring_intersector(mesh: Mesh, n_shards: int, fpad: int,
     def ring_intersect(geom: Geometry, rays: Rays) -> Hit:
         def spmd(*args) -> Hit:
             if accel is not None:
-                tri, aabb, chunk_aabb, slot_prim = args[:4]
-                geo_args, rays_local = args[4:-1], args[-1]
-                local_accel = _local_accel(tri, aabb, chunk_aabb, slot_prim)
+                tri, aabb, slot_prim = args[:3]
+                geo_args, rays_local = args[3:-1], args[-1]
+                local_accel = _local_accel(tri, aabb, slot_prim)
             else:
                 geo_args, rays_local = args[:-1], args[-1]
                 local_accel = None
@@ -299,28 +278,27 @@ def make_ring_intersector(mesh: Mesh, n_shards: int, fpad: int,
             lambda _: P(axis), Hit(t=0, prim=0, shape=0, u=0, v=0, valid=0)
         )
         if accel is not None:
-            fn = shard_map(
+            fn = jax.shard_map(
                 spmd, mesh=mesh,
                 in_specs=(P(axis, None, None), P(axis, None, None),
-                          P(axis, None, None), P(axis, None),
-                          *_geom_specs(), _ray_spec),
-                out_specs=out_spec, check_rep=False,
+                          P(axis, None), *_geom_specs(), _ray_spec),
+                out_specs=out_spec, check_vma=False,
             )
-            return fn(accel.tri, accel.aabb, accel.chunk_aabb,
-                      accel.slot_prim, *_geom_args(geom), rays)
-        fn = shard_map(
+            return fn(accel.tri, accel.aabb, accel.slot_prim,
+                      *_geom_args(geom), rays)
+        fn = jax.shard_map(
             spmd, mesh=mesh,
             in_specs=(*_geom_specs(), _ray_spec),
-            out_specs=out_spec, check_rep=False,
+            out_specs=out_spec, check_vma=False,
         )
         return fn(*_geom_args(geom), rays)
 
     def ring_occluded(geom: Geometry, rays: Rays) -> jax.Array:
         def spmd(*args) -> jax.Array:
             if accel is not None:
-                tri, aabb, chunk_aabb, slot_prim = args[:4]
-                geo_args, rays_local = args[4:-1], args[-1]
-                local_accel = _local_accel(tri, aabb, chunk_aabb, slot_prim)
+                tri, aabb, slot_prim = args[:3]
+                geo_args, rays_local = args[3:-1], args[-1]
+                local_accel = _local_accel(tri, aabb, slot_prim)
             else:
                 geo_args, rays_local = args[:-1], args[-1]
                 local_accel = None
@@ -366,19 +344,18 @@ def make_ring_intersector(mesh: Mesh, n_shards: int, fpad: int,
             return blocked
 
         if accel is not None:
-            fn = shard_map(
+            fn = jax.shard_map(
                 spmd, mesh=mesh,
                 in_specs=(P(axis, None, None), P(axis, None, None),
-                          P(axis, None, None), P(axis, None),
-                          *_geom_specs(), _ray_spec),
-                out_specs=P(axis), check_rep=False,
+                          P(axis, None), *_geom_specs(), _ray_spec),
+                out_specs=P(axis), check_vma=False,
             )
-            return fn(accel.tri, accel.aabb, accel.chunk_aabb,
-                      accel.slot_prim, *_geom_args(geom), rays)
-        fn = shard_map(
+            return fn(accel.tri, accel.aabb, accel.slot_prim,
+                      *_geom_args(geom), rays)
+        fn = jax.shard_map(
             spmd, mesh=mesh,
             in_specs=(*_geom_specs(), _ray_spec),
-            out_specs=P(axis), check_rep=False,
+            out_specs=P(axis), check_vma=False,
         )
         return fn(*_geom_args(geom), rays)
 

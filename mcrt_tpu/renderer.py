@@ -1,6 +1,6 @@
 """Frame renderer: the pass pipeline as one jitted function.
 
-TPU-native replacement for the reference's ``RenderPipeline`` pass sequencer +
+Replacement for the reference's ``RenderPipeline`` pass sequencer +
 blackboard (``engine/rendering/architecture/RenderPipeline.h:10-94``): where
 the reference chains RTPrimaryRays → RTPathTracing → RTReconstruction →
 RTDenoise → RTToneMapping passes with device syncs between them (SURVEY §3.2),

@@ -1,6 +1,6 @@
 """Runtime layer: platform/device discovery, buffer accounting, native lib.
 
-TPU-native replacement for the reference's RT system layer
+Replacement for the reference's RT system layer
 (``source/application/PathTracer/raytracing/system/``): ``PlatformManager``
 -> :mod:`.platform` device enumeration; ``RTBufferManager`` -> tracked
 :class:`~.platform.BufferManager`; ``KernelManager``'s compile cache is

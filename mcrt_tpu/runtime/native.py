@@ -3,7 +3,9 @@
 Role of the reference's native host layer: where the reference links against
 assimp for model import (``engine/resource/AssetImporter.h``) and RadeonRays'
 C++ SAH builders (``src/accelerator/bvh.cpp``), this module loads
-``libmcrt_native.so`` — built on demand with ``make -C native`` — and exposes:
+``libmcrt_native.so`` — built with ``make -C native`` on first use in each
+process (make rebuilds it whenever ``mcrt_native.cpp`` changed) — and
+exposes:
 
 - ``parse_obj_native(path)``: fast OBJ geometry parse (~50x the Python loader
   on San-Miguel-scale files); material *properties* still come from the
@@ -12,8 +14,7 @@ C++ SAH builders (``src/accelerator/bvh.cpp``), this module loads
   decomposition for the Pallas blocked intersector (quality alternative to
   Morton blocking, cf. ``Bvh::FindSahSplit``).
 
-Every entry point has a graceful ``None``/fallback story so the pure-Python
-path keeps working when no compiler is available.
+A failed build raises: nothing falls back to another builder or parser.
 """
 from __future__ import annotations
 
@@ -31,33 +32,25 @@ _LIB_PATH = os.path.join(_NATIVE_DIR, "libmcrt_native.so")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-_tried = False
 
 
-def _build() -> bool:
-    try:
-        r = subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
-            capture_output=True, text=True, timeout=120,
-        )
-        return r.returncode == 0 and os.path.exists(_LIB_PATH)
-    except (OSError, subprocess.TimeoutExpired):
-        return False
+def _build() -> None:
+    r = subprocess.run(["make", "-C", _NATIVE_DIR], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0 or not os.path.exists(_LIB_PATH):
+        raise RuntimeError(
+            f"`make -C {_NATIVE_DIR}` failed (rc {r.returncode}):\n"
+            f"{r.stdout}{r.stderr}")
 
 
-def get_lib() -> ctypes.CDLL | None:
-    """Load (building if necessary) the native library; None on failure."""
-    global _lib, _tried
+def get_lib() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the native library."""
+    global _lib
     with _lock:
-        if _lib is not None or _tried:
+        if _lib is not None:
             return _lib
-        _tried = True
-        if not os.path.exists(_LIB_PATH) and not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
+        _build()
+        lib = ctypes.CDLL(_LIB_PATH)
         lib.obj_parse.restype = ctypes.c_void_p
         lib.obj_parse.argtypes = [ctypes.c_char_p]
         lib.obj_counts.argtypes = [ctypes.c_void_p] + [
@@ -89,7 +82,12 @@ def get_lib() -> ctypes.CDLL | None:
 
 
 def available() -> bool:
-    return get_lib() is not None
+    """Whether the library builds and loads here."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 @dataclass
@@ -108,10 +106,8 @@ class ObjGeometry:
 
 
 def parse_obj_native(path: str) -> ObjGeometry | None:
-    """Parse OBJ geometry via the native library; None if unavailable."""
+    """Parse OBJ geometry via the native library; None if unreadable."""
     lib = get_lib()
-    if lib is None:
-        return None
     h = lib.obj_parse(path.encode())
     if not h:
         return None
@@ -144,10 +140,8 @@ def sah_block_order(
     bins: int = 16,
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Binned-SAH block decomposition: returns (order (ntri,),
-    block_start (n_blocks+1,)) or None if the native lib is unavailable."""
+    block_start (n_blocks+1,))."""
     lib = get_lib()
-    if lib is None:
-        return None
     positions = np.ascontiguousarray(positions, np.float32)
     indices = np.ascontiguousarray(indices, np.int32)
     ntri = indices.shape[0]
@@ -169,10 +163,9 @@ def sbvh_block_refs(
     (``split_bvh.h:30-45``): returns (ref_tri (n_refs,), ref_bounds
     (n_refs, 6) lo/hi clipped boxes, block_start (n_blocks+1,)).  Straddling
     triangles may be referenced from more than one block with plane-clipped
-    bounds; n_refs <= ntri * (1 + extra_refs_budget)."""
+    bounds; n_refs <= ntri * (1 + extra_refs_budget).  None when the
+    builder produced no references."""
     lib = get_lib()
-    if lib is None:
-        return None
     positions = np.ascontiguousarray(positions, np.float32)
     indices = np.ascontiguousarray(indices, np.int32)
     ntri = indices.shape[0]

@@ -4,7 +4,7 @@ Role of the reference's RT system layer (SURVEY §2d):
 
 - ``PlatformManager`` (``system/PlatformManager.cpp:23-57``): enumerate
   compute devices, pick the best one, expose device info to the UI — here a
-  thin view over ``jax.devices()`` with TPU memory stats.
+  thin view over ``jax.devices()`` with device memory stats.
 - ``RTBufferManager`` (``system/RTBufferManager.h:21-71``): tracked, named
   allocation contexts with total/max statistics — here ``BufferManager``
   registers pytrees-of-arrays under named contexts and reports per-context

@@ -1,10 +1,10 @@
 """Counter-based sample streams.
 
-TPU-native replacement for the reference's xorshift+Wang-hash RNG
+Replacement for the reference's xorshift+Wang-hash RNG
 (``assets/kernels/rng.cl:27-102``) and its per-pixel/frame/bounce seeding
 (``samplers.cl:74-85``): we use JAX's counter-based threefry keys, folded over
 (seed, frame, dimension), which gives deterministic, reproducible,
-shard-invariant streams — the TPU analogue of seeding by
+shard-invariant streams — the counterpart of seeding by
 ``pixel + frame + bounce``.
 
 The stream is functional: ``SampleStream`` carries (key, dim, pixel ids) and
@@ -18,12 +18,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from ..config import SamplerConfig, SamplerType
 
 
-class SampleStream(struct.PyTreeNode):
+class SampleStream(PyTreeNode):
     """Functional per-batch sample stream. ``pixel`` are global pixel indices
     (for pixel-decorrelated low-discrepancy scrambling), ``index`` is the
     per-pixel sample index (spp counter, = frame in progressive rendering)."""
@@ -33,7 +33,7 @@ class SampleStream(struct.PyTreeNode):
     pixel: jax.Array  # (N,) i32 global pixel ids
     index: jax.Array  # () i32 sample index (frame)
     scramble: jax.Array  # () u32 frame-INDEPENDENT scramble seed (sobol)
-    kind: int = struct.field(pytree_node=False, default=0)  # 0=random, 1=sobol
+    kind: int = field(pytree_node=False, default=0)  # 0=random, 1=sobol
     sobol_mats: jax.Array | None = None  # (D, 32) u32 direction matrices
 
 

@@ -6,7 +6,7 @@ dimension d is the XOR of direction numbers selected by the set bits of j,
 then XOR-scrambled.  Instead of vendoring the 8.9-kLoC table we derive the
 direction numbers from scipy's Sobol implementation (same Joe-Kuo data,
 public) once and cache them as an .npy asset; sampling itself is pure jnp
-(bitwise XOR folds over 32 static steps — VPU-friendly, no gathers beyond a
+(bitwise XOR folds over 32 static steps — no gathers beyond a
 (32, D) table lookup).
 
 Scrambling: per-(pixel, dimension) random XOR (digit scrambling) seeded from

@@ -99,7 +99,7 @@ class SceneBuffers:
         """Instance a previously added shape under a new transform — the
         ``IntersectionApi::CreateInstance`` analogue (``radeon_rays.h:223-227``,
         used for shared meshes in ``RTScene::attachMesh``,
-        ``RTScene.cpp:564-678``).  Geometry is flattened world-space on TPU,
+        ``RTScene.cpp:564-678``).  Geometry is flattened world-space,
         so the instance gets its own transformed vertex block; the shared
         object-space source survives in the :class:`SceneAnimator` base
         snapshot for later dynamic transforms."""

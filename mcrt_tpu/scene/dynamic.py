@@ -1,6 +1,6 @@
 """Dynamic scene updates — transforms, instances, accumulation reset.
 
-TPU-native re-design of the reference's dynamic-update path (SURVEY §3.4):
+Re-design of the reference's dynamic-update path (SURVEY §3.4):
 ``RTScene::updateDynamicEntities`` rewrites per-shape transforms, calls
 ``shape->SetTransform`` + ``IntersectionApi::Commit`` to refit the BVH, and
 notifies the integrators to reset accumulation
@@ -9,7 +9,7 @@ mesh come from ``IntersectionApi::CreateInstance``
 (``RadeonRays/include/radeon_rays.h:214-227``, used by ``RTScene::attachMesh``,
 ``RTScene.cpp:564-678``).
 
-The TPU formulation is functional: a :class:`SceneAnimator` snapshots the
+The formulation is functional: a :class:`SceneAnimator` snapshots the
 base (build-time) geometry, and :meth:`SceneAnimator.transformed` is a pure,
 jittable map ``(S,4,4) transforms -> new Scene`` — a batched gather + matmul
 over all vertices (MXU-friendly), followed by an in-jit refresh of mesh-light
@@ -22,7 +22,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 from .scene import LIGHT_MESH, Geometry, Lights, Scene, pack_face_attrs
 
@@ -68,7 +68,7 @@ def _refresh_mesh_lights(lights: Lights, positions: jax.Array,
     return lights.replace(area=new_area, tri_cdf=cdf)
 
 
-class SceneAnimator(struct.PyTreeNode):
+class SceneAnimator(PyTreeNode):
     """Base-geometry snapshot + per-vertex shape ids; maps per-shape
     transforms to a fresh world-space :class:`Scene` (jittable)."""
 

@@ -229,10 +229,8 @@ def load_obj(path: str) -> ObjMesh:
 
 def _load_obj_native(path: str) -> ObjMesh | None:
     """Native-parser fast path: C++ geometry parse + numpy corner dedup."""
-    try:
-        from ..runtime.native import parse_obj_native
-    except ImportError:
-        return None
+    from ..runtime.native import parse_obj_native
+
     g = parse_obj_native(path)
     if g is None:
         return None

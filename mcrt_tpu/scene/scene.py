@@ -1,6 +1,6 @@
 """Scene pytree — the device scene as a struct-of-arrays pytree.
 
-TPU-native re-design of the reference's scene plumbing: the ``RTDeviceScene``
+Re-design of the reference's scene plumbing: the ``RTDeviceScene``
 buffer set (``assets/kernels/kernel_data.h:278-294``), the per-shape records
 (``RTShape``, ``kernel_data.h:36-52``), the uber-material SoA
 (``RTMaterial``, ``kernel_data.h:87-113``), and the light table (``RTLight``,
@@ -20,7 +20,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core.pytree import PyTreeNode, field
 
 # light types — matches the reference's component set (engine/rendering/lights/)
 LIGHT_DIRECTIONAL = 0
@@ -41,18 +41,16 @@ TEX_NORMAL = 7
 N_TEX_SLOTS = 8
 
 
-class Geometry(struct.PyTreeNode):
+class Geometry(PyTreeNode):
     """Flattened world-space triangle soup (``RTScene::attachMesh`` concatenates
     submeshes the same way, ``RTScene.cpp:564-678``).
 
     ``face_attrs`` is a denormalized per-face copy of everything the shading
     path needs — vertex positions/normals/uvs plus the face's material and
-    light ids (``RTShape`` lookups folded in).  TPU gathers are
-    address-generation bound: the cost of a gather sweep over N rays is
-    ~independent of row width, so ONE (F, 32) gather by primitive id replaces
-    the six distinct-index sweeps of the normalized layout (3 vertex-index
-    indirections + shape->material + shape->light).  ~128 B/face of extra
-    HBM — bandwidth is cheap, address streams are not."""
+    light ids (``RTShape`` lookups folded in).  ONE (F, 32) gather by
+    primitive id replaces the six distinct-index sweeps of the normalized
+    layout (3 vertex-index indirections + shape->material + shape->light),
+    at ~128 B/face of extra device memory."""
 
     positions: jax.Array  # (V, 3) f32 world space
     normals: jax.Array  # (V, 3) f32
@@ -65,7 +63,7 @@ class Geometry(struct.PyTreeNode):
     # attributes by the hit shape's to_world (``RTShape`` transform applied
     # at vertex fetch, ``geometry.cl:30-90``); False compiles the transform
     # away entirely
-    instanced: bool = struct.field(pytree_node=False, default=False)
+    instanced: bool = field(pytree_node=False, default=False)
 
     @property
     def num_faces(self) -> int:
@@ -114,7 +112,7 @@ def pack_face_attrs(positions: jax.Array, normals: jax.Array, uvs: jax.Array,
     return jnp.concatenate([packed, jnp.zeros((f, pad), jnp.float32)], axis=1)
 
 
-class Shapes(struct.PyTreeNode):
+class Shapes(PyTreeNode):
     """Per-shape records (``RTShape``, ``kernel_data.h:36-52``)."""
 
     material: jax.Array  # (S,) i32
@@ -124,7 +122,7 @@ class Shapes(struct.PyTreeNode):
     normal_mat: jax.Array  # (S, 3, 3) f32 inverse-transpose of to_world[:3,:3]
 
 
-class Instances(struct.PyTreeNode):
+class Instances(PyTreeNode):
     """Instanced-shape registry (``IntersectionApi::CreateInstance``
     analogue, ``radeon_rays.h:223-227``): each instance is a SHAPE whose
     geometry is the face range of a source mesh held once in the global
@@ -133,21 +131,21 @@ class Instances(struct.PyTreeNode):
 
     shape: jax.Array  # (I,) i32 shape id of each instance
     src_shape: jax.Array  # (I,) i32 source shape id
-    face_lo: tuple = struct.field(pytree_node=False, default=())  # per-inst
-    face_hi: tuple = struct.field(pytree_node=False, default=())
+    face_lo: tuple = field(pytree_node=False, default=())  # per-inst
+    face_hi: tuple = field(pytree_node=False, default=())
 
     @property
     def num(self) -> int:
         return len(self.face_lo)
 
 
-class Materials(struct.PyTreeNode):
+class Materials(PyTreeNode):
     """Uber-material SoA (``RTMaterial``, ``kernel_data.h:87-113``): every
     material is the PBRT-style uber material; unused lobes are black.
 
     ``used_slots`` is a STATIC per-slot mask (known at trace time): a texture
-    slot no material in the scene binds compiles to zero gathers — the TPU
-    analogue of the reference's per-hit ``texId >= 0`` branches
+    slot no material in the scene binds compiles to zero gathers — the
+    static counterpart of the reference's per-hit ``texId >= 0`` branches
     (``materials.cl:67-91``), hoisted from per-lane to per-program."""
 
     diffuse: jax.Array  # (M, 3)
@@ -167,7 +165,7 @@ class Materials(struct.PyTreeNode):
     # bxdfs.cl:590-605): any rs > 0 replaces the Lambertian lobe with the
     # coupled diffuse+Schlick-specular blend
     rs_blend: jax.Array  # (M, 3)
-    used_slots: tuple = struct.field(
+    used_slots: tuple = field(
         pytree_node=False, default=(True,) * N_TEX_SLOTS
     )
     # STATIC per-LOBE mask (diffuse, glossy, spec_refl, spec_trans,
@@ -177,7 +175,7 @@ class Materials(struct.PyTreeNode):
     # (``sampleUberBSDF``, bxdfs.cl:892-1053).  Texture modulation only
     # MULTIPLIES constants, so a zero constant keeps its lobe off; opacity
     # is the exception (textures can lower it below 1), handled in stack().
-    used_lobes: tuple = struct.field(pytree_node=False, default=(True,) * 7)
+    used_lobes: tuple = field(pytree_node=False, default=(True,) * 7)
 
     @classmethod
     def stack(cls, mats: list["UberMaterial"]):
@@ -248,7 +246,7 @@ class UberMaterial:
         self.rs_blend = np.asarray(rs_blend, np.float32)
 
 
-class Lights(struct.PyTreeNode):
+class Lights(PyTreeNode):
     """Light table (``RTLight``, ``kernel_data.h:137-152``) + uniform choice pdf
     (``RTScene::computeChoicePdfsForLights``, ``RTScene.cpp:412-476``).
 
@@ -289,11 +287,11 @@ class Lights(struct.PyTreeNode):
         )
 
 
-class TextureAtlas(struct.PyTreeNode):
+class TextureAtlas(PyTreeNode):
     """All textures in one RGBA8 byte buffer with a descriptor table —
     the reference does exactly this because OpenCL 1.2 lacks bindless images
-    (``textures.cl:15-125``, upload in ``RTScene.cpp:680-766``); on TPU one
-    flat buffer + gathers is likewise the natural layout.
+    (``textures.cl:15-125``, upload in ``RTScene.cpp:680-766``); one flat
+    buffer + gathers serves here too.
 
     Mip chain: level i of texture t starts at ``offset[t] + mip_offset(i)``;
     descriptors store base offset + base w/h + mip count; wrap mode per texture.
@@ -327,7 +325,7 @@ class TextureAtlas(struct.PyTreeNode):
         return self.offset.shape[1]
 
 
-class Scene(struct.PyTreeNode):
+class Scene(PyTreeNode):
     geometry: Geometry
     shapes: Shapes
     materials: Materials

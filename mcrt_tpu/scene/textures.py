@@ -1,11 +1,11 @@
 """Texture atlas: build (host) + sampling (device).
 
-TPU-native analogue of the reference's custom texture machinery
+Analogue of the reference's custom texture machinery
 (``assets/kernels/textures.cl``): OpenCL 1.2 has no bindless images, so the
 reference packs every texture (and its mip chain) into one giant byte buffer
 with ``TextureDesc2D`` records and hand-rolls nearest/bilinear/trilinear
-fetches with 4 wrap modes (:30-202).  One flat buffer + gathers is likewise
-the natural TPU layout — with two twists:
+fetches with 4 wrap modes (:30-202).  One flat buffer + gathers is kept
+here — with two twists:
 
 - texel storage is **transposed** ``(4, TEXELS) uint8`` so a fetch gathers
   along the lane axis (see accel/lbvh.py for the measured rationale);
@@ -102,15 +102,17 @@ def load_texture_image(path: str, srgb: bool = False) -> np.ndarray | None:
     ``srgb=True`` linearizes the color channels (MTL ``map_Kd`` color maps
     are authored sRGB; all radiance math is linear).  Rows are flipped so
     OBJ's bottom-up ``vt`` convention lands on row 0.  Returns None when
-    the file is missing or no decoder is available (callers degrade to the
+    the file is missing or cannot be decoded (callers degrade to the
     constant material color, like ``readTexture2Df_ifValid``,
-    ``textures.cl:211-241``)."""
+    ``textures.cl:211-241``).  Decoding needs Pillow."""
     if not os.path.exists(path):
         return None
     try:
         from PIL import Image
-    except ImportError:  # pragma: no cover - PIL is in the base env
-        return None
+    except ImportError as e:
+        raise ImportError(
+            f"decoding the texture {path!r} needs Pillow (PIL), which is "
+            "not installed") from e
     try:
         with Image.open(path) as im:
             arr = np.asarray(im.convert("RGBA"), np.uint8)

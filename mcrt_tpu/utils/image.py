@@ -3,6 +3,9 @@
 checks."""
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -16,16 +19,27 @@ def to_srgb_u8(img: np.ndarray, flip_vertical: bool = True) -> np.ndarray:
     return (x * 255.0 + 0.5).astype(np.uint8)
 
 
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """Encode an (H, W, 3) u8 array as an 8-bit RGB PNG."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rgb.reshape(h, w * 3)], axis=1).tobytes()
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
 def write_png(path: str, img: np.ndarray, flip_vertical: bool = True):
-    from PIL import Image
-
-    Image.fromarray(to_srgb_u8(img, flip_vertical)).save(path)
-
-
-def read_png(path: str) -> np.ndarray:
-    from PIL import Image
-
-    return np.asarray(Image.open(path), np.float32) / 255.0
+    with open(path, "wb") as f:
+        f.write(png_bytes(to_srgb_u8(img, flip_vertical)))
 
 
 def mse(a: np.ndarray, b: np.ndarray) -> float:

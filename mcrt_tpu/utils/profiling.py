@@ -1,6 +1,6 @@
 """Profiling spans + renderer metrics.
 
-TPU-native analogue of the reference's ``QueryManager``
+Analogue of the reference's ``QueryManager``
 (``engine/util/QueryManager.h``, 441 LoC): named hierarchical CPU+GPU spans
 with per-frame / max / average histories, surfaced in the stats GUI
 (``StatsWindow.cpp:12-49``).  Here:
@@ -8,8 +8,8 @@ with per-frame / max / average histories, surfaced in the stats GUI
 - host spans: a lightweight RAII span registry with the same
   per-interval max/avg histories (``ScopedProfiling`` analogue);
 - device time: wrap ``jax.profiler`` traces (Perfetto) and
-  ``jax.named_scope`` for XLA-visible names — the TPU way to attribute
-  device time, instead of GL timestamp queries;
+  ``jax.named_scope`` for XLA-visible names — how device time is
+  attributed here, instead of GL timestamp queries;
 - renderer metrics: rays/s, spp, memory-per-chip (``RTBufferManager``
   stats role, ``RTBufferManager.h:21-71``).
 """

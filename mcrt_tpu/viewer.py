@@ -33,7 +33,6 @@ Usage: ``python -m mcrt_tpu view --scene cornell_box --port 8000``.
 """
 from __future__ import annotations
 
-import io
 import json
 import threading
 import urllib.parse
@@ -254,16 +253,12 @@ class ProgressiveViewer:
 
     # ---- state ---------------------------------------------------------
     def png_bytes(self) -> bytes:
-        from .utils.image import to_srgb_u8
-        from PIL import Image
+        from .utils.image import png_bytes, to_srgb_u8
 
         r = self.renderer
         img = np.asarray(r.display_image()).reshape(
             r.cfg.height, r.cfg.width, 3)
-        buf = io.BytesIO()
-        Image.fromarray(to_srgb_u8(img, flip_vertical=True)).save(
-            buf, format="PNG")
-        return buf.getvalue()
+        return png_bytes(to_srgb_u8(img, flip_vertical=True))
 
     def status(self) -> dict:
         r = self.renderer

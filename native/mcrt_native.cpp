@@ -1,6 +1,6 @@
 // Native runtime kernels for mcrt_tpu (host side).
 //
-// TPU-native equivalents of the reference's performance-critical native
+// Equivalents of the reference's performance-critical native
 // components:
 //   - obj_*:  fast Wavefront OBJ geometry parser — the role of assimp in the
 //     reference's import path (AssetImporter over assimp,

@@ -51,7 +51,7 @@ def test_golden_fixture(name):
 
 @needs_fixtures
 def test_golden_original_blocked_accel():
-    """Same render through the production TPU accel (interpreted on CPU):
+    """Same render through the blocked accel (interpreted on CPU):
     the Pallas path must reproduce the brute-force image."""
     from mcrt_tpu.config import AccelType
 

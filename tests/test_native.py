@@ -1,19 +1,31 @@
 """Tests for the native runtime library (OBJ parser + SAH partitioner).
 
-The native library is optional (built on demand with g++); these tests skip
-when no toolchain is available, and the pure-Python fallbacks are covered by
-the rest of the suite.
+The library is built with ``make -C native`` on first use; these tests skip
+where no toolchain is available.  The mesh tests write an icosphere OBJ.
 """
 import numpy as np
 import pytest
 
 from mcrt_tpu.runtime import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library unavailable (no g++?)"
-)
 
-BUNNY = "/root/reference/assets/meshes/bunny.obj"
+@pytest.fixture(autouse=True)
+def _needs_native():
+    if not native.available():
+        pytest.skip("native library does not build here (no g++/make?)")
+
+
+@pytest.fixture
+def sphere_obj(tmp_path):
+    """A 5,120-triangle icosphere written as OBJ (``v`` + ``f`` lines)."""
+    from mcrt_tpu.scene.builders import icosphere
+
+    pos, idx, _ = icosphere((0.0, 0.0, 0.0), 1.0, subdiv=4)
+    path = tmp_path / "sphere.obj"
+    lines = [f"v {x:.7g} {y:.7g} {z:.7g}" for x, y, z in np.asarray(pos)]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in np.asarray(idx)]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
 
 
 def test_obj_parse_matches_python(tmp_path):
@@ -51,15 +63,15 @@ def test_obj_quad_fan_triangulation(tmp_path):
     np.testing.assert_array_equal(g.f_v, [[0, 1, 2], [0, 2, 3]])
 
 
-def test_native_loader_equals_python_loader():
+def test_native_loader_equals_python_loader(sphere_obj):
     from mcrt_tpu.scene import objloader
 
-    m_native = objloader._load_obj_native(BUNNY)
+    m_native = objloader._load_obj_native(sphere_obj)
     assert m_native is not None
     saved = objloader._load_obj_native
     try:
         objloader._load_obj_native = lambda p: None
-        m_py = objloader.load_obj(BUNNY)
+        m_py = objloader.load_obj(sphere_obj)
     finally:
         objloader._load_obj_native = saved
     assert m_native.indices.shape == m_py.indices.shape
@@ -73,10 +85,10 @@ def test_native_loader_equals_python_loader():
     np.testing.assert_allclose(tn, tp, atol=1e-6)
 
 
-def test_sah_block_order_is_partition():
+def test_sah_block_order_is_partition(sphere_obj):
     from mcrt_tpu.scene.objloader import load_obj
 
-    mesh = load_obj(BUNNY)
+    mesh = load_obj(sphere_obj)
     out = native.sah_block_order(mesh.positions, mesh.indices, 128, 16)
     assert out is not None
     order, bstart = out

@@ -162,8 +162,7 @@ def test_pair_cull_scales_with_instances_entered():
     table = _ray_table(rays)
     order = _coherence_order(rays, accel.bounds)
     packed = _pack_table(jnp.take(table, order, axis=0))
-    counts, _, _ = _visit_lists(packed, accel.pair_chunk, accel.pair_aabb,
-                                True)
+    counts, _, _ = _visit_lists(packed, accel.pair_aabb)
     mean_visits = float(np.asarray(counts).mean())
     # each ray column can enter at most the ~2 instances under it; with
     # ~2 blocks per instance the per-tile visit count must be tiny
